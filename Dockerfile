@@ -1,5 +1,5 @@
-# cellregmap-tpu container (reference parity: /root/reference/Dockerfile).
-# For TPU runtime use a jax[tpu]-enabled base instead.
+# cellregmap-tpu container (CPU JAX; reference parity: the reference's
+# Dockerfile).  For an NVIDIA GPU install "jax[cuda12]" instead of "jax[cpu]".
 FROM python:3.12-slim
 
 RUN apt-get update && apt-get install -y --no-install-recommends g++ \

@@ -1,38 +1,28 @@
-"""cellregmap_tpu — TPU-native CellRegMap: context-specific eQTL mapping.
+"""cellregmap_tpu — CellRegMap in JAX: context-specific eQTL mapping.
 
 A from-scratch JAX/XLA re-design of limix/CellRegMap (StructLMM-style
 variance-component score tests for GxC interactions, LRT association tests,
-and GLS effect-size decomposition) built for TPU: batched profiled LMM fits,
-one-shot workspace-basis factorization, on-device p-value approximations with
-a native (C++) Davies exact tail on host, and mesh-sharded scans.
+and GLS effect-size decomposition): batched profiled LMM fits, one-shot
+workspace-basis factorization, on-device p-value approximations with a
+native (C++) Davies exact tail on host, and mesh-sharded scans.
 
 Public surface mirrors the reference package
-(/root/reference/cellregmap/__init__.py:1-20) plus the TPU-native extensions.
+(cellregmap/__init__.py:1-20) plus the batched extensions.
 """
 # Statistical parity requires float64; enable before any jax usage.
 import os as _os
 
 import jax as _jax
 
+from ._config import CACHE_ROOT
+
 _jax.config.update("jax_enable_x64", True)
 
-# Persistent XLA compilation cache: scan kernels take minutes to compile on
-# a remote TPU backend; caching executables across processes makes every run
-# after the first start in seconds.  Opt out with CELLREGMAP_TPU_CACHE=0 or
-# point CELLREGMAP_TPU_CACHE at a different directory.
-_cache_dir = _os.environ.get(
-    "CELLREGMAP_TPU_CACHE",
-    _os.path.join(_os.path.expanduser("~"), ".cache", "cellregmap_tpu",
-                  "xla"),
-)
-if _cache_dir and _cache_dir != "0":
-    try:
-        _os.makedirs(_cache_dir, exist_ok=True)
-        _jax.config.update("jax_compilation_cache_dir", _cache_dir)
-        _jax.config.update("jax_persistent_cache_min_compile_time_secs", 2.0)
-        _jax.config.update("jax_persistent_cache_min_entry_size_bytes", -1)
-    except Exception:  # pragma: no cover - cache is best-effort
-        pass
+# Persistent XLA compilation cache.  JAX itself honours
+# JAX_COMPILATION_CACHE_DIR; without it, compiled kernels go to one fixed
+# directory of this checkout, so every later process finds them.
+if not _os.environ.get("JAX_COMPILATION_CACHE_DIR"):
+    _jax.config.update("jax_compilation_cache_dir", str(CACHE_ROOT / "xla"))
 
 from ._config import ScanConfig, DEFAULT_CONFIG
 from ._types import Term

@@ -1,4 +1,4 @@
-"""Configuration for the CellRegMap-TPU engine.
+"""Configuration for the cellregmap_tpu engine.
 
 The reference (limix/CellRegMap) hard-codes its hyper-parameters inline:
 rho-grid ``linspace(0, 1, 11)`` (/root/reference/cellregmap/_cellregmap.py:108,119),
@@ -8,7 +8,13 @@ Here they live in one dataclass so scans are reproducible and tunable.
 from __future__ import annotations
 
 import dataclasses
+from pathlib import Path
 from typing import Optional, Tuple
+
+# Build and compile caches of this checkout (listed in .gitignore): the XLA
+# compilation cache (unless JAX_COMPILATION_CACHE_DIR is set) and the native
+# host libraries built from cellregmap_tpu/native.
+CACHE_ROOT = Path(__file__).resolve().parent.parent / ".cache"
 
 
 @dataclasses.dataclass(frozen=True)
@@ -72,14 +78,14 @@ class ScanConfig:
     lambda_filter_ratio: float = 1e5
     dtype: str = "float64"
     # Hybrid precision: localize the REML optimum (coarse grid + first
-    # Newton/zoom iterations) in f32 — f64 matmul is the TPU throughput
-    # ceiling, ~10x slower than f32 — then converge in f64 and keep all
-    # score/statistics math f64.  The interaction path restores full-f64
-    # p-value equality (tests/test_hybrid.py pins 1e-9); the betas path
-    # resolves each per-rho optimum to the f32 noise floor, so rho
-    # argmaxes at ties flatter than ~1e-4 lml may differ from a full-f64
-    # run (the fits themselves agree to ~1e-7).  Disable for exact-argmax
-    # audit runs.
+    # Newton/zoom iterations) in f32 at full f32 precision, then converge
+    # in f64 and keep all score/statistics math f64 (whether f32
+    # localization pays where f64 is native, as on a GPU, is open).  The
+    # interaction path restores full-f64 p-value equality
+    # (tests/test_hybrid.py pins 1e-9); the betas path resolves each
+    # per-rho optimum to the f32 noise floor, so rho argmaxes at ties
+    # flatter than ~1e-4 lml may differ from a full-f64 run (the fits
+    # themselves agree to ~1e-7).  Disable for exact-argmax audit runs.
     hybrid_localization: bool = True
     # p-value clipping used by lrt_pvalues (reference clips to
     # [epsilon.super_tiny, 1 - epsilon.tiny], _cellregmap.py:467-469).

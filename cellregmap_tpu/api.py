@@ -132,7 +132,7 @@ def _batch_starts(total, batch, progress, desc):
 
 
 class CellRegMap:
-    """Mixed-model with genetic effect heterogeneity (TPU-native engine).
+    """Mixed-model with genetic effect heterogeneity (batched JAX engine).
 
     The model (reference docstring _cellregmap.py:24-61):
 
@@ -187,8 +187,8 @@ class CellRegMap:
 
         A betas-only workflow (estimate_betas/predict_interaction) never
         touches the interaction/association null family, whose one-time
-        host QR + per-rho eighs cost ~200 s at 100k cells (VERDICT r3
-        item 3) — so construction is deferred until a scan needs it.
+        host factorization dominates setup at large n — so construction is
+        deferred until a scan needs it.
         """
         if self._ctx_cache is None:
             self._ctx_cache = engine.build_null_context(
@@ -376,11 +376,9 @@ class CellRegMap:
     @property
     def _ctx32(self):
         """Float32 copy of the null context, built lazily for the screen
-        pass.  TPU f64 is software-emulated (the measured roofline puts
-        f32 matmul at >=11x the f64 emulation ceiling,
-        docs/performance.md); the screen pass runs the WHOLE interaction
-        kernel in f32 and the confirm pass re-tests candidate hits through
-        the full f64 + Davies path."""
+        pass: the screen runs the WHOLE interaction kernel's heavy tensors
+        in f32 and the confirm pass re-tests candidate hits through the
+        full f64 + Davies path."""
         if self._ctx32_cache is None:
             self._ctx32_cache = jax.tree.map(
                 lambda a: a.astype(jnp.float32), self._ctx)
@@ -407,18 +405,18 @@ class CellRegMap:
         f64 + Davies re-test of candidate hits.
 
         Pass 1 runs the full interaction kernel (REML fits, score
-        statistic, mixture weights, saddlepoint tail) in float32 — on TPU
-        this runs at the f32 MXU rate, >=11x the emulated-f64 ceiling.
-        Pass 2 gathers every pair whose screen p-value falls below
-        ``significance * screen_margin`` (or is non-finite) and re-tests it
-        through the standard full-precision path with exact Davies tails.
+        statistic, mixture weights, saddlepoint tail) with float32 heavy
+        tensors at full float32 precision.  Pass 2 gathers every pair whose
+        screen p-value falls below ``significance * screen_margin`` (or is
+        non-finite) and re-tests it through the standard full-precision
+        path with exact Davies tails.
 
         Contract: any pair whose full-f64 p-value is below ``significance``
         is (a) in the confirmed set and (b) reported with its exact
         f64 + Davies p-value, PROVIDED the screen error stays within
-        ``screen_margin`` (measured max |log10 pv32/pv64| is ~1e-2 decades
-        at production shapes — see docs/performance.md and
-        tests/test_screen.py — vs the default margin of 2 decades).
+        ``screen_margin`` (the screen error is measured against an f64
+        saddlepoint scan by chip_smoke.py at the 10k-cell north-star shape
+        and by tests/test_screen.py; the default margin is 2 decades).
         Pairs above the threshold carry the f32 saddlepoint approximation.
 
         Returns ``(pvalues, info)``; ``info["confirmed"]`` marks re-tested
@@ -436,9 +434,9 @@ class CellRegMap:
         thr = min(1.0, float(significance) * float(screen_margin))
 
         ctx32 = self._ctx32
-        # f32 temporaries are ~8x smaller than the f64 limb-expanded ones
-        # (_auto_batch_cap budgets 32 B/elem), so the screen can run wider
-        # batches; 4x keeps slack for the f32 score tensors
+        # f32 temporaries are smaller than the f64 ones _auto_batch_cap
+        # budgets for, so the screen can run wider batches; 4x keeps slack
+        # for the f32 score tensors
         batch = min(cfg.snp_batch * 2, 4 * self._auto_batch_cap(),
                     max(n_snps, 1))
         Gp, _ = _pad_batch(G, batch)
@@ -629,12 +627,11 @@ class CellRegMap:
         n_genes = Y.shape[1]
         gtile = max(1, min(gene_batch, n_genes))
 
-        # per-(gene, variant) HBM: the rotated y-family and the stage-2
-        # delta/weight family are (gene, S, nrho, R) f64 tensors whose
-        # limb expansion the XLA memory planner holds in BOTH the S-major
-        # and R-major layouts plus remat copies — measured ~4x the naive
-        # two-copy estimate (a 16-gene x 336-variant tile planned 20.9 GB
-        # and failed compile on a 16 GB chip, round 5)
+        # per-(gene, variant) device memory: the rotated y-family and the
+        # stage-2 delta/weight family are (gene, S, nrho, R) f64 tensors
+        # that the XLA memory planner can hold in BOTH the S-major and
+        # R-major layouts plus remat copies, so the budget is ~4x the
+        # naive two-copy estimate
         R = int(self._ctx.S.shape[1])
         nrho = int(self._ctx.S.shape[0])
         C = int(self._ctx.E0.shape[1])
@@ -642,8 +639,7 @@ class CellRegMap:
         # canonical (gene_tile, snp_batch) shape: the variant axis pads UP
         # to the full batch instead of clamping to n_snps, so every
         # cis-window width shares ONE compiled program (a fresh gene-batched
-        # compile costs ~2 min on the remote backend; the padded columns
-        # cost a fraction of that in extra scan FLOPs — VERDICT r3 item 4)
+        # compile costs far more than the padded columns' extra scan FLOPs)
         batch = min(cfg.snp_batch, self._auto_batch_cap(),
                     max(16, int(5e9 / per_gv / gtile)))
         Gp, n_snps = _pad_batch(G, batch)
@@ -658,8 +654,7 @@ class CellRegMap:
         tiles = []
         # fingerprint the inputs, not just their shapes: resuming with
         # different Y/G of identical shape would silently splice
-        # incompatible tiles (ADVICE r4 #3; matches the PLINK wrapper's
-        # inputs_sha pattern, plink_scan.py)
+        # incompatible tiles
         ck_meta = {"n_snps": n_snps, "n_genes": n_genes, "gtile": gtile,
                    "batch": batch,
                    "inputs_sha": _content_sha(Y, G) if checkpoint else None}
@@ -733,18 +728,20 @@ class CellRegMap:
         return pvalues, info
 
     def _auto_batch_cap(self, kind: str = "interaction") -> int:
-        """Variant-batch cap keeping a kernel's temporaries within HBM.
+        """Variant-batch cap keeping a kernel's temporaries within device
+        memory.
 
-        Per-variant HBM (TPU stores f64 at 32 B/element — f32 limbs plus
-        tile padding).  ``interaction``: the (n_rho, R, batch)
-        rotated-genotype family (Gt/GY/G2/GW + the stage-2 weight tensors,
-        ~8 live f64 copies), the best-rho score factor (R, C) at ~3 copies,
-        and the (n, C, batch) Khatri-Rao intermediates (~3 copies).
+        Per-variant bytes, budgeted at a conservative 32 B per f64 element
+        (sizing the cap from the device's memory is open work).
+        ``interaction``: the (n_rho, R, batch) rotated-genotype family
+        (Gt/GY/G2/GW + the stage-2 weight tensors, ~8 live f64 copies), the
+        best-rho score factor (R, C) at ~3 copies, and the (n, C, batch)
+        Khatri-Rao intermediates (~3 copies).
         ``association``: the per-variant delta grid materializes
         (batch, K, R) weighted intermediates (~6 copies).  ``betas``: the
         Khatri-Rao rotate plus the per-variant pair-product tensor
         (Rk, q^2) and the (n_rho x 16)-point family grids over Rk.
-        Budget ~5 GB on a 16 GB chip.
+        Budget ~5 GB per batch.
         """
         C = int(self._E0.shape[1])
         n = self._n
@@ -786,7 +783,7 @@ class CellRegMap:
             return pv_sp, np.asarray(lambdas)
         if method == "davies" and Wmat is not None:
             # host LAPACK eigenvalues of the weight matrices for the exact
-            # path (the TPU backend's device eigh is only ~1e-7 accurate)
+            # path (the device eigh is skipped in davies mode)
             Wm = np.asarray(Wmat, float)
             lambdas = np.linalg.eigvalsh((Wm + np.swapaxes(Wm, -1, -2)) / 2)
         if method == "davies":
@@ -801,10 +798,9 @@ class CellRegMap:
             if refine.any():
                 lam_ref = np.asarray(lambdas)[refine]
                 if Wmat is not None:
-                    # the device eigh is only ~1e-7 accurate; the refined
-                    # tail is exactly where 1e-8 agreement matters, so
-                    # recompute the refined subset's eigenvalues on host
-                    # LAPACK from the weight matrices
+                    # the refined tail is exactly where 1e-8 agreement
+                    # matters: recompute the refined subset's eigenvalues
+                    # on host LAPACK from the weight matrices
                     Wm = np.asarray(Wmat, float)[refine]
                     lam_ref = np.linalg.eigvalsh(
                         (Wm + np.swapaxes(Wm, -1, -2)) / 2)
@@ -830,7 +826,7 @@ class CellRegMap:
     def _assoc_info(self, fits, k):
         # rho1 comes from the context's actual grid (single source of truth
         # with the multigene path; a custom rho_grid would otherwise
-        # silently diverge between them — ADVICE r3 #5)
+        # silently diverge between them)
         rho_grid = np.asarray(self._ctx.rho)
         rho1 = float(rho_grid[k] if rho_grid.shape[0] > 1 else 1.0)
         v0 = float(fits.v0[k])
@@ -857,7 +853,7 @@ class CellRegMap:
         cfg = self._cfg
         delta_cfg = (cfg.delta_logit_lo, cfg.delta_logit_hi,
                      cfg.n_delta_grid, cfg.n_golden_iters)
-        # HBM cap for the Newton refit kernel's per-variant (R,) tensors
+        # memory cap for the Newton refit kernel's per-variant (R,) tensors
         batch = min(cfg.snp_batch, self._auto_batch_cap("association"),
                     max(G.shape[1], 1))
         Gp, n_snps = _pad_batch(G, batch)
@@ -1022,7 +1018,7 @@ class CellRegMap:
             raise ValueError("G must have at least one variant column")
         n_genes = Y.shape[1]
         gtile = max(1, min(gene_batch, n_genes))
-        # memory-aware cap (ADVICE r3 #2): per (gene, variant) the kernel
+        # memory-aware cap: per (gene, variant) the kernel
         # holds the rotated genotype family (~4 live (R,) f64 copies at
         # 32 B/elem — ZG, Gt per gene, the complement Grams) plus the
         # pipeline window of 4 in-flight batches
@@ -1082,8 +1078,7 @@ class CellRegMap:
     def _betas_context(self):
         """Build (once) and cache the betas state: the background QR/eigh
         is a one-time O(n Rk^2) host factorization — at 100k cells it
-        dominated every predict_interaction call before caching (VERDICT r3
-        Weak #3)."""
+        dominated every predict_interaction call before caching."""
         if self._bctx is None:
             self._bctx = engine.build_betas_context(
                 self._y, self._W, self._E0, self._Ls,

@@ -1,7 +1,7 @@
 """Batched scan kernels: the compute core of cellregmap_tpu.
 
-Design (TPU-first; see SURVEY.md section 7)
--------------------------------------------
+Design (see SURVEY.md section 7)
+--------------------------------
 The reference runs, per SNP, 11 serial REML fits plus an O(n r C) score pass
 (/root/reference/cellregmap/_cellregmap.py:340-435).  Here the whole scan is
 restructured around a single orthonormal *workspace basis* Z spanning every
@@ -12,7 +12,7 @@ covariance factor ([E1, L_1..L_C]):
   n x m factors, and Q0(rho) = Z V(rho) is never materialized.
 * Every n-length contraction (rotating y, W, G, and the Khatri-Rao tensor
   Z^T (g (.) E0) needed by the score statistic) happens once per variant
-  batch as large MXU matmuls, independent of rho.
+  batch as large matmuls, independent of rho.
 * The per-variant work (11 profiled REML fits, the score statistic, the
   C x C mixture-weight eigenproblem, Liu/saddlepoint tails) is pure
   small-dimension algebra vmapped across the batch: one XLA program,
@@ -32,13 +32,13 @@ import jax.numpy as jnp
 
 from .models import lmm as lmm_mod
 from .models import pvalues as pv_mod
-from .ops.linalg import spd_solve, sym_pseudo_solve
+from .ops.linalg import full_f32_matmuls, spd_solve, sym_pseudo_solve
 
 
-# Cell-axis blocking of the Khatri-Rao contractions: bounds the ~8x f32
-# limb expansion XLA's f64 matmul applies to each operand (see
-# _kr_contract).  Module-level so tests can force the blocked path on
-# small shapes.
+# Cell-axis blocking of the Khatri-Rao contractions: bounds the size of
+# each contraction's operands and temporaries (see _kr_contract; whether a
+# GPU needs the blocking at all is open).  Module-level so tests can force
+# the blocked path on small shapes.
 _KR_BLOCK_ELEMS = 4.7e7
 _KR_MIN_BLOCK = 1024
 
@@ -75,7 +75,7 @@ def _gram_basis(F):
     padding convention), so the basis width may differ from QR's; all
     results are basis-invariant.
 
-    Rank-resolution limit (ADVICE r4 #4): squaring the spectrum halves the
+    Rank-resolution limit: squaring the spectrum halves the
     resolvable dynamic range — directions with singular value below
     ~sqrt(m * eps) * sigma_max fall under the Gram eigenvalue cut and are
     dropped, where backward-stable QR would have kept them (kappa ~ 1e8 is
@@ -136,13 +136,12 @@ def build_null_context(y, W, E1, E0=None, Ls: Optional[Sequence] = None,
     rho_np = _np.asarray(jax.device_get(rho_grid), float)
 
     # One-time basis construction on host LAPACK: full f64 accuracy and
-    # robust to exactly rank-deficient factor stacks (the TPU backend's QR
-    # and eigh misbehave on those; everything per-batch stays on device).
-    # Everything here is pure NumPy with a single device upload at the end:
-    # under a remote TPU each jnp op is a separate dispatch (and a separate
-    # first-use compile), which dominated setup time.  The Gram-route
-    # basis (see :func:`_gram_basis`) gives the rotations for free:
-    # T = Z^T F, so Ge/Gk are Gram blocks of T — no extra n-length matmuls.
+    # robust to exactly rank-deficient factor stacks (everything per-batch
+    # stays on device).  Everything here is pure NumPy with a single device
+    # upload at the end, so setup costs no per-op dispatches or first-use
+    # compiles.  The Gram-route basis (see :func:`_gram_basis`) gives the
+    # rotations for free: T = Z^T F, so Ge/Gk are Gram blocks of T — no
+    # extra n-length matmuls.
     F = _np.concatenate([E1_np] + bg_np, axis=1)
     Z_np, R_np = _gram_basis(F)
     C1 = E1_np.shape[1]
@@ -156,12 +155,11 @@ def build_null_context(y, W, E1, E0=None, Ls: Optional[Sequence] = None,
 
     Gz = rho_np[:, None, None] * Ge[None] \
         + (1 - rho_np)[:, None, None] * Gk[None]
-    # The per-rho factorization runs once per dataset; LAPACK on host gives
-    # full f64 accuracy (the TPU backend's QDWH eigh is only ~1e-7 and NaNs
-    # on singular inputs).  The rho points run SERIALLY: LAPACK's eigh is
-    # internally threaded over every core already, and oversubscribing it
-    # with a thread pool thrashes the cache (measured 9x slower at R=2520
-    # on a 2-core host: 188 s pooled vs 21 s serial).
+    # The per-rho factorization runs once per dataset on host LAPACK (full
+    # f64 accuracy, exact on singular inputs; whether a device eigh should
+    # take over on a GPU is open).  The rho points run SERIALLY: LAPACK's
+    # eigh is internally threaded over every core already, and
+    # oversubscribing it with a thread pool thrashes the cache.
     eigs = [_np.linalg.eigh(g) for g in Gz]
     S = jnp.asarray(_np.maximum(_np.stack([e[0] for e in eigs]), 0.0), dtype)
     V = jnp.asarray(_np.stack([e[1] for e in eigs]), dtype)
@@ -185,11 +183,10 @@ def _kr_contract(U, V, G):
     """M[k, j, s] = sum_n U[n,k] V[n,j] G[n,s]  ->  (K, p, S).
 
     The Khatri-Rao contractions are each ONE (K, n) @ (n, p*S) matmul —
-    a single MXU-shaped HLO op instead of per-column matmuls (which
-    multiplied compile time and serialized kernel launches).  XLA's f64
-    matmul expands each operand into ~8 f32 limb copies, so at large n the
-    cell axis is blocked with a lax.scan accumulator to bound the expanded
-    buffers (a 100k-cell batch otherwise allocates ~6 GB per operand).
+    a single large HLO dot instead of per-column matmuls (which
+    multiplied compile time and serialized kernel launches).  At large n
+    the cell axis is blocked with a lax.scan accumulator to bound the
+    (n, p*S) Khatri-Rao operand and the matmul's temporaries.
     """
     n, K = U.shape
     p = V.shape[1]
@@ -292,6 +289,7 @@ def _fit_over_rho(ctx: NullContext, Xz, X_gram, X_y, n, restricted,
 # --------------------------------------------------------------------------
 # Interaction scan kernel
 # --------------------------------------------------------------------------
+@full_f32_matmuls
 def interaction_batch(ctx: NullContext, G, G_score, n: int,
                       delta_cfg=(-18.0, 18.0, 64, 60), saddle_iters=40,
                       device_pvalues: bool = True,
@@ -330,9 +328,9 @@ def interaction_batch(ctx: NullContext, G, G_score, n: int,
     # score factor T is rotated only at each variant's best rho, after the
     # rho argmax — an all-rho (nrho, R, C, S) tensor is the scan's largest
     # allocation by far and OOMs large-n configs.)
-    # per-rho rotations as a loop of plain (R, R) matmuls: a single batched
-    # einsum over the rho axis would limb-expand ALL of V at once for the
-    # f64 dot (8 f32 copies = ~6 GB at R ~ 4000), OOMing large-n configs.
+    # per-rho rotations as a loop of plain (R, R) matmuls, so no f64 dot
+    # holds temporaries for ALL of V at once (large-R configs OOMed when
+    # the rho axis was one batched einsum).
     # The phenotype rotation is kept SEPARATE from the W/G rotation so the
     # gene-batched scan (vmap over y) shares all genotype rotations across
     # genes — only yt_all and the small y-Grams acquire a gene axis.
@@ -379,9 +377,10 @@ def interaction_batch(ctx: NullContext, G, G_score, n: int,
     Cgy = jnp.clip(Cgy, -cgy_b, cgy_b)
 
     # --- normal-equation component tensors, per precision -----------------
-    # Hybrid precision: TPU f64 is software-emulated (elementwise ~6x
-    # slower than f32, matmul ~4x), but only the *final* refinement and the
-    # score statistic need f64.  The pipeline is:
+    # Hybrid precision: localization runs in f32 (at full f32 precision,
+    # see ops.linalg.full_f32_matmuls); only the *final* refinement and the
+    # score statistic need f64.  Whether the f32 stage still pays off where
+    # f64 is native is open.  The pipeline is:
     #   1. coarse delta grid + safeguarded Newton in f32  (localization)
     #   2. one f64 lml evaluation at the f32 optimum        (rho argmax;
     #      at an optimum the lml error is O(delta_err^2) ~ 1e-8, so the
@@ -389,8 +388,8 @@ def interaction_batch(ctx: NullContext, G, G_score, n: int,
     #   3. f64 Newton iterations at the best rho only       (11x less f64)
     #   4. f64 score pass (unchanged)
     # Components (entries of the normal equations as separate arrays) keep
-    # every op elementwise over the well-tiled R axis: trailing (R, p1) or
-    # (p1, p1) axes would be tile-padded up to 64x on TPU.
+    # every op elementwise over the long R axis, with no tiny trailing
+    # (R, p1) or (p1, p1) axes.
     R = ctx.S.shape[1]
     p1 = p + 1
     nu = n - p1
@@ -402,7 +401,7 @@ def interaction_batch(ctx: NullContext, G, G_score, n: int,
     # catastrophically in f32 at C >= 20 (measured: 98% NaN Q at C=20,
     # R=1300) — while the HEAVY tensors (contractions, rotations, score
     # factors) stay in the context dtype and the f64 work is only the
-    # per-variant reductions, so the f32 screen keeps its MXU throughput.
+    # per-variant reductions, so the f32 screen keeps its f32 matmuls.
     sd = jnp.float64
 
     from .ops.linalg import (unrolled_chol_factor, unrolled_chol_logdet,
@@ -496,7 +495,7 @@ def interaction_batch(ctx: NullContext, G, G_score, n: int,
     # and the noise forms a spurious lml maximum at the low bracket edge
     # (measured: delta -> sigmoid(-18), Q inflated 1000x, in the f32 screen
     # kernel at C=20).  Exclude noise-floor points from the argmax — a
-    # relative guard, not the absolute-tiny one (ADVICE.md round 1).
+    # relative guard, not the absolute-tiny one.
     rss_collapsed = rss_grid <= 128 * jnp.finfo(fast).eps * yy_grid
     rss_grid = jnp.maximum(rss_grid, jnp.finfo(fast).tiny)
 
@@ -523,8 +522,8 @@ def interaction_batch(ctx: NullContext, G, G_score, n: int,
     row_bad = jnp.all(~jnp.isfinite(lml_grid), axis=-1)  # (S, nrho)
     k_grid = jnp.argmax(lml_grid, axis=-1)              # (S, nrho)
     # bracket/delta state in the CONTEXT dtype: a stray f64 linspace here
-    # would promote the stage-2/3 weight reductions to emulated f64 even
-    # when the whole kernel runs f32 (the screen path)
+    # would promote the stage-2/3 weight reductions to f64 even when the
+    # whole kernel runs f32 (the screen path)
     logit_grid = jnp.linspace(lo, hi, n_grid).astype(f64)
     br_lo = jnp.where(row_bad, jnp.asarray(lo, f64),
                       logit_grid[jnp.maximum(k_grid - 1, 0)])
@@ -537,7 +536,7 @@ def interaction_batch(ctx: NullContext, G, G_score, n: int,
     # --- Newton machinery (precision- and stage-generic) -------------------
     def _derivs(delta, TS, rs, ro):
         """(dL/d delta, d2L/d delta2) of the restricted profiled objective
-        (the math of models/lmm.reml_delta_derivatives, in component form;
+        (the math of models/lmm.delta_derivatives, in component form;
         validated against it in tests/test_lmm.py)."""
         # compute in the WIDER of (tensor, state) dtypes: stage 1b runs
         # f32 x f32, stage 3 runs f32-tensor x f64-state in f64 (the f32
@@ -675,12 +674,11 @@ def interaction_batch(ctx: NullContext, G, G_score, n: int,
     # rotate the score factor T at the best rho only, as a masked
     # accumulation over the (static, small) rho grid.  This does nrho x
     # more matmul FLOPs than gathering each variant's V[k] and batch-
-    # multiplying, but each rotation here is a FAT (R, R) @ (R, C*S) GEMM
-    # at the f64-matmul ceiling, whereas the gathered form's (chunk, R, R)
-    # @ (chunk, R, C) batched matmuls have an N dimension of C ~ 10 that
-    # tile-pads to 128 (~8% MXU utilization) — measured 0.50 s vs 0.31 s
-    # per 512-variant batch in favor of this form.  (The all-rho tensor
-    # (nrho, R, C, S) is never materialized either way.)
+    # multiplying, but each rotation here is a FAT (R, R) @ (R, C*S) GEMM,
+    # whereas the gathered form's (chunk, R, R) @ (chunk, R, C) batched
+    # matmuls have an N dimension of only C ~ 10 (which form is faster on
+    # a GPU is open).
+    # The all-rho tensor (nrho, R, C, S) is never materialized either way.
     nrho_s = ctx.S.shape[0]
     At_all = jnp.zeros((T.shape[2], T.shape[1], T.shape[0]), f64)  # (S, R, C)
     for o in range(nrho_s):
@@ -760,10 +758,10 @@ def interaction_batch(ctx: NullContext, G, G_score, n: int,
             from .ops.linalg import safe_eigh
 
             # eigh in the CONTEXT dtype: the statistics stages promote
-            # Wmat to f64 (see sd), but a batched f64 QDWH eigh is the
-            # single most expensive device op on TPU; the f32 screen only
-            # needs ~1e-6-relative mixture weights.  The result is cast
-            # back to the statistics dtype for the tail evaluations.
+            # Wmat to f64 (see sd), but the f32 screen only needs
+            # ~1e-6-relative mixture weights, and a batched f64 eigh is
+            # costly.  The result is cast back to the statistics dtype for
+            # the tail evaluations.
             lam = jnp.maximum(
                 safe_eigh(Wmat.astype(ctx.y.dtype))[0], 0.0
             ).astype(Wmat.dtype)
@@ -802,12 +800,11 @@ def interaction_batch(ctx: NullContext, G, G_score, n: int,
     return out
 
 
-interaction_kernel = functools.partial(
-    jax.jit(interaction_batch,
-            static_argnames=("n", "delta_cfg", "saddle_iters",
-                             "device_pvalues", "profile_stage",
-                             "newton_f32", "newton_f64", "localize_f32"))
-)
+interaction_kernel = jax.jit(
+    interaction_batch,
+    static_argnames=("n", "delta_cfg", "saddle_iters", "device_pvalues",
+                     "profile_stage", "newton_f32", "newton_f64",
+                     "localize_f32"))
 
 
 def interaction_multigene_batch(ctx: NullContext, G, G_score, n: int,
@@ -872,6 +869,7 @@ def null_association_kernel(ctx: NullContext, n: int, restricted: bool = False,
     return fits, k
 
 
+@full_f32_matmuls
 def association_refit_batch(ctx: NullContext, G, k_rho, n: int,
                             delta_cfg=(-18.0, 18.0, 64, 60),
                             newton_f64: int = 10,
@@ -881,7 +879,7 @@ def association_refit_batch(ctx: NullContext, G, k_rho, n: int,
     The reference's "slow" association scan (_cellregmap.py:268-276): each
     variant refits delta with X = [W, g].  Round 3 ran the generic
     golden-section fitter here — 60 *sequential* objective evaluations per
-    variant of tile-padded tiny matmuls (VERDICT r3 item 7).  This kernel
+    variant of tile-padded tiny matmuls.  This kernel
     reuses the interaction path's machinery instead: the coarse delta grid
     is evaluated as snp-SHARED batched GEMMs (one (K, R) weight tensor
     serves every variant) in f32, then a safeguarded Newton on the analytic
@@ -1292,6 +1290,7 @@ def build_betas_context(y, W, E0, Ls: Optional[Sequence], rho_grid=None,
 
 @functools.partial(jax.jit,
                    static_argnames=("n", "delta_cfg", "localize_f32"))
+@full_f32_matmuls
 def predict_interaction_kernel(ctx: BetasContext, G, norm, n: int,
                                delta_cfg=(-18.0, 18.0, 64, 60),
                                localize_f32: bool = False):

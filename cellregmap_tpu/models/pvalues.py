@@ -4,7 +4,7 @@ The reference's only native dependency is the C ``qfc`` routine inside
 chiscore (Davies' exact method, consumed at _cellregmap.py:333,435 via
 ``davies_pvalue``) plus the pure-Python ``liu_sf`` (_math.py:169-180).
 
-TPU-native design: three rungs.
+Design: three rungs.
 
 1. **mod-Liu** (`liu_sf`) — 4-moment chi-squared match (Liu-Tang-Zhang with
    the Lee/Wu/Lin kurtosis modification).  Pure jnp, fully batched; runs on
@@ -15,7 +15,8 @@ TPU-native design: three rungs.
 3. **Davies exact** (`davies_pvalue`) — our own C++ implementation of
    Davies' algorithm (native/qfc.cc, loaded via ctypes), host-side, applied
    where exactness matters; falls back to a SciPy Imhof quadrature oracle and
-   to mod-Liu exactly like chiscore/SKAT do when the algorithm fails.
+   to mod-Liu exactly like chiscore/SKAT do when the algorithm fails (the
+   library itself must build: a missing library raises).
 """
 from __future__ import annotations
 
@@ -149,13 +150,11 @@ def saddlepoint_sf(q, lambdas, n_iters: int = 40):
 # Rung 3: Davies exact (host)
 # --------------------------------------------------------------------------
 def _davies_native(q, lambdas, lim, acc):
-    """Call the native C++ Davies routine; returns (pv, ifault) or None."""
+    """Call the native C++ Davies routine; returns (pv, ifault)."""
     from ..utils.native import get_qfc
 
-    lib = get_qfc()
-    if lib is None:
-        return None
-    return lib.davies(np.asarray(lambdas, float), float(q), int(lim), float(acc))
+    return get_qfc().davies(np.asarray(lambdas, float), float(q), int(lim),
+                            float(acc))
 
 
 def davies_pvalue(q, weight_matrix=None, lambdas=None, lim=20_000_000,
@@ -192,10 +191,7 @@ def davies_pvalue(q, weight_matrix=None, lambdas=None, lim=20_000_000,
     pv = None
     zero_result = False
     for acc_try in ([acc] if acc >= 1e-6 else [acc, 1e-6]):
-        res = _davies_native(q, lam, lim, acc_try)
-        if res is None:
-            break
-        pv_d, ifault = res
+        pv_d, ifault = _davies_native(q, lam, lim, acc_try)
         if ifault == 0 and 0.0 < pv_d <= 1.0:
             pv = pv_d
             break
@@ -210,9 +206,9 @@ def davies_pvalue(q, weight_matrix=None, lambdas=None, lim=20_000_000,
         for acc_try in (1e-12, 1e-14, 1e-16):
             if acc_try >= acc:
                 continue
-            res = _davies_native(q, lam, lim, acc_try)
-            if res is not None and res[1] == 0 and 0.0 < res[0] <= 1.0:
-                pv = res[0]
+            pv_d, ifault = _davies_native(q, lam, lim, acc_try)
+            if ifault == 0 and 0.0 < pv_d <= 1.0:
+                pv = pv_d
                 break
     # Then refine tail results with a descending-acc ladder (tail hits
     # only — a handful of extra calls per scan).  Finer-acc runs that flag
@@ -224,10 +220,7 @@ def davies_pvalue(q, weight_matrix=None, lambdas=None, lim=20_000_000,
         for acc_ref in (max(pv * 1e-1, 1e-15), max(pv * 1e-3, 1e-16)):
             if acc_ref >= cur_acc:
                 continue
-            res = _davies_native(q, lam, lim, acc_ref)
-            if res is None:
-                break
-            pv_r, if_r = res
+            pv_r, if_r = _davies_native(q, lam, lim, acc_ref)
             if not (0.0 < pv_r <= 1.0):
                 break
             if if_r == 0 or (if_r == 2 and abs(pv_r - pv) <= 2 * cur_acc):
@@ -248,7 +241,7 @@ def davies_pvalue(q, weight_matrix=None, lambdas=None, lim=20_000_000,
                 pv = None
         except Exception as e:
             # quadrature failure is survivable (mod-Liu takes over below),
-            # but never silently (VERDICT round 1)
+            # but never silently
             import logging
 
             logging.getLogger("cellregmap_tpu").warning(
@@ -269,31 +262,24 @@ def davies_pvalue_batch(qs, lambda_rows, lim=20_000_000, acc=1e-8,
                         lambda_filter_ratio=1e5, n_threads=0):
     """Batched host-side Davies over many (q, lambda-spectrum) problems.
 
-    Uses the native threaded batch entry point when available; falls back to
-    a Python loop.  ``lambda_rows`` is (S, C) with zero padding allowed.
+    Runs the native threaded batch entry point.  ``lambda_rows`` is (S, C)
+    with zero padding allowed.
     """
     from ..utils.native import get_qfc
 
     qs = np.asarray(qs, float)
     lam = np.asarray(lambda_rows, float)
-    lib = get_qfc()
-    if lib is not None:
-        pv = lib.davies_batch(lam, qs, lim, acc, lambda_filter_ratio,
-                              n_threads)
-        # deep-tail refinement (see davies_pvalue): results below ~1e4*acc
-        # (including exact 0 from integral cancellation) carry large
-        # RELATIVE error at the batch's absolute accuracy; re-run those few
-        # through the scalar ladder, which scales acc to the result
-        refine = np.nonzero((pv >= 0.0) & (pv < acc * 1e4))[0]
-        for i in refine:
-            pv[i] = davies_pvalue(qs[i], lambdas=lam[i], lim=lim, acc=acc,
-                                  lambda_filter_ratio=lambda_filter_ratio)
-        return pv
-    out = np.empty_like(qs)
-    for i in range(qs.shape[0]):
-        out[i] = davies_pvalue(qs[i], lambdas=lam[i], lim=lim, acc=acc,
-                               lambda_filter_ratio=lambda_filter_ratio)
-    return out
+    pv = get_qfc().davies_batch(lam, qs, lim, acc, lambda_filter_ratio,
+                                n_threads)
+    # deep-tail refinement (see davies_pvalue): results below ~1e4*acc
+    # (including exact 0 from integral cancellation) carry large RELATIVE
+    # error at the batch's absolute accuracy; re-run those few through the
+    # scalar ladder, which scales acc to the result
+    refine = np.nonzero((pv >= 0.0) & (pv < acc * 1e4))[0]
+    for i in refine:
+        pv[i] = davies_pvalue(qs[i], lambdas=lam[i], lim=lim, acc=acc,
+                              lambda_filter_ratio=lambda_filter_ratio)
+    return pv
 
 
 def score_statistic_liu_params(q, weights):

@@ -72,11 +72,8 @@ int bed_decode_range(const char* path, int64_t n_samples, int64_t n_variants,
       if (i >= n_out || err.load()) break;
       int64_t v = v_start + i;
       int64_t off = 3 + v * bytes_per_variant;
-#if defined(_WIN32)
-      std::fseek(fh, (long)off, SEEK_SET);
-#else
-      std::fseeko(fh, off, SEEK_SET);
-#endif
+      // fseeko is POSIX (declared by <stdio.h>), not a member of std::
+      ::fseeko(fh, off, SEEK_SET);
       if (std::fread(buf.data(), 1, bytes_per_variant, fh) !=
           (size_t)bytes_per_variant) {
         err.store(1);

@@ -1,6 +1,6 @@
 """Low-rank structured covariance algebra (JAX, jittable).
 
-TPU-native replacement for the reference's rank-structured covariance layer
+Batched replacement for the reference's rank-structured covariance layer
 (/root/reference/cellregmap/_math.py:40-128: ``QSCov``, ``PMat``,
 ``ScoreStatistic``) and for numpy_sugar's ``economic_qs_linear``.
 
@@ -15,7 +15,7 @@ identity
 ops are expressed as *inner products in a fixed orthonormal workspace basis*
 plus explicit complement corrections, so downstream code (the LMM fitter, the
 score statistic) never touches n-length vectors after a one-time rotation.
-That turns the per-variant work into small, batched, MXU-friendly matmuls.
+That turns the per-variant work into small, batched matmuls.
 
 Zero eigenvalues are mathematically inert in every formula below (a direction
 with S_i = 0 behaves exactly like the orthogonal complement), so rank padding
@@ -41,7 +41,7 @@ def gram_eigh(G: jax.Array):
     """Eigendecomposition of a PSD Gram matrix with eigenvalues clamped >= 0.
 
     Returns ``(S, V)`` with ``G ~= V diag(S) V^T``; S ascending per jnp.eigh.
-    Uses the shifted (NaN-safe on TPU) eigh from ops.linalg.
+    Uses the shifted (NaN-safe on singular input) eigh from ops.linalg.
     """
     from .linalg import safe_eigh
 

@@ -2,7 +2,7 @@
 
 These serve two purposes:
 
-1. **Test oracles** — every structured/batched operation in the TPU engine is
+1. **Test oracles** — every structured/batched operation in the engine is
    checked against its naive dense formula here (the pattern of the
    reference's test/test_math.py).
 2. **CPU baseline** — a faithful re-implementation of the reference's serial
@@ -225,7 +225,7 @@ def imhof_sf(q, lambdas, epsabs=1e-13, epsrel=1e-11):
     # still far more accurate than the 1e-7 tolerances this oracle is
     # compared at (it cross-checks Davies, which is the primary method), so
     # the warning is bounded here rather than letting a noisy oracle leak
-    # into every test run (VERDICT r3 weak #7).
+    # into every test run.
     import warnings
     from scipy.integrate import IntegrationWarning
 

@@ -38,7 +38,7 @@ def initialize_distributed(coordinator_address: Optional[str] = None,
 
     No-op only when the distributed runtime is *already* initialized
     (re-entrant callers); genuine misconfiguration propagates — silently
-    swallowing it made multi-host failures invisible (VERDICT round 1).
+    swallowing it made multi-host failures invisible.
     """
     import logging
 

@@ -16,14 +16,7 @@ import jax
 import jax.numpy as jnp
 from jax.sharding import Mesh, NamedSharding, PartitionSpec as P
 
-try:  # jax >= 0.6 exposes shard_map at top level (with check_vma)
-    from jax import shard_map as _shard_map
-
-    def shard_map(f, mesh, in_specs, out_specs, check_rep=False):
-        return _shard_map(f, mesh=mesh, in_specs=in_specs,
-                          out_specs=out_specs, check_vma=check_rep)
-except ImportError:  # pragma: no cover - older jax
-    from jax.experimental.shard_map import shard_map
+from jax import shard_map
 
 from .. import engine
 from .._config import DEFAULT_CONFIG, ScanConfig
@@ -52,7 +45,7 @@ def _sharded_impl(mesh: Mesh, n: int, delta_cfg, saddle_iters,
         mesh=mesh,
         in_specs=(ctx_spec, P(None, axis), P(None, axis)),
         out_specs=out_specs,
-        check_rep=False,
+        check_vma=False,
     )
     return jax.jit(fn)
 
@@ -224,7 +217,7 @@ class ShardedScanner:
                     # one shard_map + jit for ALL tiles and batches (every
                     # (gtile, step) slice shares the shape); re-building it
                     # per call retraced and recompiled the gene-batched
-                    # program each batch (ADVICE r4 #1)
+                    # program each batch
                     fn = build_sharded_interaction_multigene(
                         self.mesh, ctx_g, gb, crm._n, delta_cfg=delta_cfg,
                         device_pvalues=dev_pv,
@@ -512,8 +505,8 @@ class ShardedScanner:
         """Sharded equivalent of
         ``CellRegMap.scan_association_fast_multigene``: gene-batched
         closed-form alternative lmls with variants sharded (wires
-        ``build_sharded_fast_scan_multigene`` to the null fits + padding,
-        VERDICT r4 task 3)."""
+        ``build_sharded_fast_scan_multigene`` to the null fits +
+        padding)."""
         crm = self.crm
 
         def builder(ctx_g, gb):
@@ -602,7 +595,7 @@ def sharded_interaction_batch(mesh: Mesh, ctx, G, G_score, n: int,
 
 # --------------------------------------------------------------------------
 # Gene-batched (multigene) sharded kernels: shard the variant axis,
-# replicate the gene tile (VERDICT r3 item 6).  The north-star workload
+# replicate the gene tile.  The north-star workload
 # (pod-scale gene-variant batches, BASELINE.json) runs the gene-batched
 # kernels; these give them the same data-parallel story as the single-gene
 # scan.  Outputs carry (gene, variant, ...) axes, so the variant axis is
@@ -615,9 +608,9 @@ def build_sharded_interaction_multigene(mesh: Mesh, ctx_g, G, n: int,
     """Compiled sharded gene-batched interaction kernel
     ``fn(ctx_g, G, G_score)`` for one (gene_tile, variant_batch) shape;
     reuse it across equally-shaped tiles/batches (re-building per call
-    retraces + recompiles the gene-batched program every time, ADVICE r4
-    #1).  ``localize_f32`` matches the local driver's hybrid-precision
-    setting so sharded and local results are bit-identical (ADVICE r4 #2).
+    retraces + recompiles the gene-batched program every time).
+    ``localize_f32`` matches the local driver's hybrid-precision
+    setting so sharded and local results are bit-identical.
     """
     axis = mesh.axis_names[0]
 
@@ -643,7 +636,7 @@ def build_sharded_interaction_multigene(mesh: Mesh, ctx_g, G, n: int,
         mesh=mesh,
         in_specs=(ctx_spec, P(None, axis), P(None, axis)),
         out_specs=out_specs,
-        check_rep=False,
+        check_vma=False,
     )
     return jax.jit(fn)
 
@@ -698,7 +691,7 @@ def build_sharded_betas(mesh: Mesh, bctx, G, norm, n: int,
         mesh=mesh,
         in_specs=(ctx_spec, P(None, axis), P(axis)),
         out_specs=out_specs,
-        check_rep=False,
+        check_vma=False,
     ))
 
 
@@ -731,7 +724,7 @@ def build_sharded_fast_scan(mesh: Mesh, ctx, G, k_rho, delta, n: int):
         mesh=mesh,
         in_specs=(ctx_spec, P(None, axis)),
         out_specs=out_specs,
-        check_rep=False,
+        check_vma=False,
     ))
 
 
@@ -765,7 +758,7 @@ def build_sharded_fast_scan_multigene(mesh: Mesh, ctx_g, G, k_rho, delta,
         mesh=mesh,
         in_specs=(ctx_spec, P(None, axis), P(), P()),
         out_specs=out_specs,
-        check_rep=False,
+        check_vma=False,
     )
     return jax.jit(fn)
 
@@ -807,7 +800,7 @@ def build_sharded_association_refit(mesh: Mesh, ctx, G, k_rho, n: int,
         mesh=mesh,
         in_specs=(ctx_spec, P(None, axis)),
         out_specs=out_specs,
-        check_rep=False,
+        check_vma=False,
     ))
 
 
@@ -840,5 +833,5 @@ def build_sharded_association_refit_multigene(
         mesh=mesh,
         in_specs=(ctx_spec, P(None, axis), k_spec),
         out_specs=out_specs,
-        check_rep=False,
+        check_vma=False,
     ))

@@ -168,7 +168,7 @@ def scan_interaction_screen_plink(crm: CellRegMap, prefix: str, *,
                                   progress: bool = False):
     """Genome-scale two-pass screen -> confirm scan over a PLINK fileset.
 
-    Per block the f32 screen kernel tests every variant at the MXU rate
+    Per block the f32 screen kernel tests every variant
     and the f64 + Davies confirm pass re-tests candidate hits exactly
     (see :meth:`CellRegMap.scan_interaction_screen` for the precision
     contract).  Completed blocks are durable; a rerun resumes at the
@@ -243,7 +243,7 @@ def scan_association_plink(crm: CellRegMap, prefix: str, *,
     ML refits (:246-281).  The covariate-only null fits once, outside the
     block loop.  Completed blocks are durable; a rerun with the same
     fileset resumes after the last checkpointed block (the reference has
-    no genotype IO at all — VERDICT r4 task 7 completes ours).
+    no genotype IO at all).
 
     Returns ``(pvalues, info, variant_index)`` like
     :func:`scan_interaction_plink`.

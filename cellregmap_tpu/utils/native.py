@@ -1,63 +1,58 @@
-"""Lazy build + ctypes loader for the native qfc library (Davies' method).
+"""Build and load the native host libraries (Davies' method, PLINK decode).
 
-The C++ source lives in ``cellregmap_tpu/native/qfc.cc`` and is compiled on
-first use with g++ into a per-user cache directory.  If compilation fails
-(no toolchain), callers transparently fall back to the SciPy Imhof oracle /
-modified-Liu ladder — the framework stays functional, only the host-exact
-path gets slower.
+The C++ sources live in ``cellregmap_tpu/native`` and are compiled with g++
+on first use into ``<checkout>/.cache/native``; each library's name carries
+a digest of its source, so an edited source is rebuilt.  A failed build
+raises with the compiler's output: the exact p-value path has no silent
+substitute.
 """
 from __future__ import annotations
 
 import ctypes
+import functools
 import hashlib
 import os
 import subprocess
-import threading
+import tempfile
 from pathlib import Path
 
 import numpy as np
 
-_LOCK = threading.Lock()
-_LIB = None
-_TRIED = False
+from .._config import CACHE_ROOT
+
+_NATIVE_SRC = Path(__file__).resolve().parent.parent / "native"
 
 
-def _source_path() -> Path:
-    return Path(__file__).resolve().parent.parent / "native" / "qfc.cc"
-
-
-def _cache_dir() -> Path:
-    d = os.environ.get("CELLREGMAP_TPU_CACHE")
-    if d:
-        p = Path(d)
-    else:
-        p = Path.home() / ".cache" / "cellregmap_tpu"
-    p.mkdir(parents=True, exist_ok=True)
-    return p
-
-
-def _build_generic(source_name: str, lib_prefix: str) -> Path | None:
-    """Compile a C++ source from cellregmap_tpu/native into the cache."""
-    src = Path(__file__).resolve().parent.parent / "native" / source_name
-    if not src.exists():
-        return None
+def _build(source_name: str) -> Path:
+    """Compile ``native/<source_name>`` into the cache; returns its path."""
+    src = _NATIVE_SRC / source_name
     digest = hashlib.sha256(src.read_bytes()).hexdigest()[:16]
-    out = _cache_dir() / f"{lib_prefix}_{digest}.so"
+    out = CACHE_ROOT / "native" / f"lib{src.stem}_{digest}.so"
     if out.exists():
         return out
-    cmd = [
-        "g++", "-O3", "-std=c++17", "-shared", "-fPIC",
-        "-o", str(out), str(src), "-lpthread",
-    ]
+    out.parent.mkdir(parents=True, exist_ok=True)
+    # build beside the target and rename into place: concurrent first uses
+    # (test workers, threads) never load a half-written library
+    fd, tmp = tempfile.mkstemp(suffix=".so", dir=out.parent)
+    os.close(fd)
     try:
-        subprocess.run(cmd, check=True, capture_output=True, timeout=120)
-    except Exception:
-        return None
-    return out if out.exists() else None
+        proc = subprocess.run(
+            ["g++", "-O3", "-std=c++17", "-shared", "-fPIC", "-o", tmp,
+             str(src), "-lpthread"],
+            capture_output=True, text=True, timeout=300)
+        if proc.returncode != 0:
+            raise RuntimeError(f"building {src.name} failed:\n{proc.stderr}")
+        os.replace(tmp, out)
+    finally:
+        if os.path.exists(tmp):
+            os.unlink(tmp)
+    return out
 
 
-def _build() -> Path | None:
-    return _build_generic("qfc.cc", "libqfc")
+@functools.lru_cache(maxsize=None)
+def load_library(source_name: str) -> ctypes.CDLL:
+    """The native library built from ``native/<source_name>`` (cached)."""
+    return ctypes.CDLL(str(_build(source_name)))
 
 
 class QfcLib:
@@ -144,18 +139,7 @@ class QfcLib:
         return pv
 
 
-def get_qfc() -> QfcLib | None:
-    """Return the loaded native library, building it on first use."""
-    global _LIB, _TRIED
-    with _LOCK:
-        if _TRIED:
-            return _LIB
-        _TRIED = True
-        path = _build()
-        if path is None:
-            return None
-        try:
-            _LIB = QfcLib(ctypes.CDLL(str(path)))
-        except OSError:
-            _LIB = None
-        return _LIB
+@functools.lru_cache(maxsize=None)
+def get_qfc() -> QfcLib:
+    """The native Davies library, built on first use."""
+    return QfcLib(load_library("qfc.cc"))

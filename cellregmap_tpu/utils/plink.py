@@ -11,49 +11,36 @@ genotype matrix.
 from __future__ import annotations
 
 import ctypes
+import functools
 from dataclasses import dataclass
 from pathlib import Path
 from typing import Iterator, List, Optional, Tuple
 
 import numpy as np
 
-from .native import _build_generic, _LOCK
+from .native import load_library
 
 
-_BED_LIB = None
-_BED_TRIED = False
-
-
+@functools.lru_cache(maxsize=None)
 def _get_bed_lib():
-    global _BED_LIB, _BED_TRIED
-    with _LOCK:
-        if _BED_TRIED:
-            return _BED_LIB
-        _BED_TRIED = True
-        path = _build_generic("bedreader.cc", "libbed")
-        if path is None:
-            return None
-        try:
-            lib = ctypes.CDLL(str(path))
-            lib.bed_decode_range.restype = ctypes.c_int
-            lib.bed_decode_range.argtypes = [
-                ctypes.c_char_p,
-                ctypes.c_int64, ctypes.c_int64,
-                ctypes.c_int64, ctypes.c_int64,
-                ctypes.POINTER(ctypes.c_double),
-                ctypes.c_int,
-            ]
-            _BED_LIB = lib
-        except OSError:
-            _BED_LIB = None
-        return _BED_LIB
+    lib = load_library("bedreader.cc")
+    lib.bed_decode_range.restype = ctypes.c_int
+    lib.bed_decode_range.argtypes = [
+        ctypes.c_char_p,
+        ctypes.c_int64, ctypes.c_int64,
+        ctypes.c_int64, ctypes.c_int64,
+        ctypes.POINTER(ctypes.c_double),
+        ctypes.c_int,
+    ]
+    return lib
 
 
 _LUT = np.array([2.0, np.nan, 1.0, 0.0])
 
 
 def _decode_python(path, n_samples, v_start, v_end):
-    """Pure-NumPy fallback decoder."""
+    """Pure-NumPy decoder: the reference the native decoder is tested
+    against."""
     bpv = (n_samples + 3) // 4
     with open(path, "rb") as f:
         magic = f.read(3)
@@ -116,9 +103,6 @@ class PlinkReader:
         allele counts with NaN for missing."""
         v_end = self.n_variants if v_end is None else v_end
         lib = _get_bed_lib()
-        if lib is None:
-            return _decode_python(self.bed_path, self.n_samples, v_start,
-                                  v_end)
         n = v_end - v_start
         out = np.empty((n, self.n_samples), dtype=np.float64)
         rc = lib.bed_decode_range(

@@ -2,7 +2,7 @@
 
 The reference has no observability beyond tqdm bars and commented-out
 ``time()`` scaffolding (/root/reference/cellregmap/_cellregmap.py:385-387,
-407,421,428).  This module provides the TPU-native equivalents promised in
+407,421,428).  This module provides the equivalents promised in
 SURVEY.md section 5.1/5.5:
 
 - ``trace_scope(name)``: a context manager that both times the scope on the
@@ -99,8 +99,8 @@ def trace_scope(name: str,
 def profile_to(logdir: str) -> Iterator[None]:
     """Capture an xprof trace of the enclosed scope into ``logdir``.
 
-    View with TensorBoard's profile plugin or xprof.  On the TPU backend the
-    trace includes device HLO timelines; on CPU it is host-only.
+    View with TensorBoard's profile plugin or xprof.  On a GPU the trace
+    includes the device kernel timelines; on CPU it is host-only.
     """
     import jax.profiler as _prof
 

@@ -70,7 +70,7 @@ def main():
           "null_association_kernel", "mean_fit_kernel"]),
         ("LMM fitters", lmm,
          [n for n in ("EigData", "fit_delta_eig", "lml_at_delta_eig",
-                      "fast_scan", "reml_delta_derivatives",
+                      "fast_scan", "delta_derivatives",
                       "fit_delta_woodbury_family")
           if hasattr(lmm, n)]),
         ("P-values", pvalues,

@@ -1,6 +1,6 @@
 """Test-time loader for the reference's own simulator.
 
-For parity grounding (VERDICT.md round 1, item 1) the tests generate input
+For parity grounding the tests generate input
 data by *executing* the reference's ``_simulate.py`` in place from
 /root/reference (read-only; nothing is copied into this repo).  The only
 missing dependency, ``numpy_sugar``, is satisfied with a minimal in-test

@@ -200,7 +200,7 @@ def test_run_wrappers():
 
 def test_association_newton_matches_golden():
     """The Newton-based slow-association refit (shared-GEMM grid + analytic
-    ML derivatives, VERDICT r3 item 7) must reproduce the golden-section
+    ML derivatives) must reproduce the golden-section
     path's lmls and p-values."""
     for seed, pW in ((11, 2), (23, 1)):
         d = _dataset(seed=seed, pW=pW, S=8)

@@ -1,4 +1,4 @@
-"""Crash -> resume coverage for EVERY scan path (VERDICT r4 task 2).
+"""Crash -> resume coverage for EVERY scan path.
 
 Round 4 covered interaction scans only; these tests close the durability
 matrix: both association scans, both multigene association scans, and
@@ -124,7 +124,7 @@ def test_checkpoint_crash_resume(name, tmp_path, monkeypatch):
 
 def test_checkpoint_rejects_changed_inputs(tmp_path, monkeypatch):
     """A checkpoint written for one (y, G) must NOT be spliced into a scan
-    of different data with the same shapes (ADVICE r4 #3)."""
+    of different data with the same shapes."""
     y, W, E, G, Ls = _dataset(seed=53)
     cfg = crt.ScanConfig(snp_batch=3)
     crm = crt.CellRegMap(y=y, E=E, W=W, Ls=Ls, config=cfg)

@@ -1,4 +1,4 @@
-"""Real multi-process distribution (VERDICT round-1 item 5).
+"""Real multi-process distribution.
 
 Two OS processes initialize `jax.distributed` over a localhost coordinator
 (CPU backend, gloo collectives, 2 virtual devices each -> 4 global devices),

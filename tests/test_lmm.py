@@ -139,7 +139,7 @@ def test_reml_derivatives_vs_finite_differences():
     Q0, S0 = economic_qs_linear(jnp.asarray(F))
     data = L.eig_data(S0, Q0, jnp.asarray(X), jnp.asarray(y))
     for delta in (0.05, 0.3, 0.7, 0.95):
-        lp, lpp = L.reml_delta_derivatives(jnp.asarray(delta), data, n)
+        lp, lpp = L.delta_derivatives(jnp.asarray(delta), data, n)
         h = 1e-6
         f = lambda dd: float(L.lml_at_delta_eig(jnp.asarray(dd), data, n,
                                                 True)[0])
@@ -147,3 +147,46 @@ def test_reml_derivatives_vs_finite_differences():
         fd2 = (f(delta + h) - 2 * f(delta) + f(delta - h)) / h**2
         assert_allclose(float(lp), fd1, rtol=2e-5, atol=1e-8)
         assert_allclose(float(lpp), fd2, rtol=2e-3, atol=1e-4)
+
+
+def test_ml_derivatives_vs_finite_differences():
+    rng = np.random.default_rng(10)
+    n, p, m = 45, 2, 6
+    F = rng.normal(size=(n, m))
+    X = np.concatenate([np.ones((n, 1)), rng.normal(size=(n, p - 1))], axis=1)
+    y = rng.normal(size=n)
+    Q0, S0 = economic_qs_linear(jnp.asarray(F))
+    data = L.eig_data(S0, Q0, jnp.asarray(X), jnp.asarray(y))
+    for delta in (0.05, 0.3, 0.7, 0.95):
+        lp, lpp = L.delta_derivatives(jnp.asarray(delta), data, n,
+                                      restricted=False)
+        h = 1e-6
+        f = lambda dd: float(L.lml_at_delta_eig(jnp.asarray(dd), data, n,
+                                                False)[0])
+        fd1 = (f(delta + h) - f(delta - h)) / (2 * h)
+        fd2 = (f(delta + h) - 2 * f(delta) + f(delta - h)) / h**2
+        assert_allclose(float(lp), fd1, rtol=2e-5, atol=1e-8)
+        assert_allclose(float(lpp), fd2, rtol=2e-3, atol=1e-4)
+
+
+@pytest.mark.parametrize("restricted", [False, True])
+def test_fit_eig_settles_on_derivative_root(restricted):
+    """The fitted delta is a root of the analytic derivative (the Newton
+    polish), not merely a golden-section point inside the objective's
+    rounding noise: the fit is reproducible under a permutation of the
+    samples, which only changes summation order."""
+    rng = np.random.default_rng(12)
+    n, p, m = 3000, 2, 40
+    F = rng.normal(size=(n, m)) / np.sqrt(m)
+    X = np.concatenate([np.ones((n, 1)), rng.normal(size=(n, p - 1))], axis=1)
+    y = F @ rng.normal(size=m) + rng.normal(size=n)
+    deltas = []
+    for idx in (np.arange(n), rng.permutation(n)):
+        Q0, S0 = economic_qs_linear(jnp.asarray(F[idx]))
+        data = L.eig_data(S0, Q0, jnp.asarray(X[idx]), jnp.asarray(y[idx]))
+        fit = L.fit_delta_eig(data, n, restricted)
+        lp, lpp = L.delta_derivatives(fit.delta, data, n, restricted)
+        assert float(lpp) < 0
+        assert abs(float(lp)) < 1e-6 * abs(float(lpp))
+        deltas.append(float(fit.delta))
+    assert abs(deltas[0] - deltas[1]) < 1e-12 * deltas[0]

@@ -2,7 +2,7 @@
 
 Round 1 only exercised C <= 10; the per-context contractions, the (S, C, C)
 weight-matrix host transfers, and the C x C eigenvalue path all scale with C
-(VERDICT round-1 item 9).
+.
 """
 import numpy as np
 from numpy.testing import assert_allclose
@@ -38,7 +38,7 @@ def test_interaction_scan_c50_matches_dense():
 
 
 def test_betas_c50_finite_and_crosschecked():
-    """Effect-size parity budget (VERDICT r3 item 5): the engine's betas
+    """Effect-size parity budget: the engine's betas
     match the independent dense oracle to <= 1e-6 on every variant — the
     measured agreement is ~1e-9 (see the sensitivity bound below), so 1e-6
     leaves two orders of margin for platform variation.
@@ -77,7 +77,7 @@ def test_betas_delta_sensitivity_bound():
     |d beta_g / d delta| at the optimum, times the engines' delta
     agreement (<= ~1e-7 measured between the zoom+vertex fitter and the
     xatol=1e-12 scipy search), stays well under the 1e-6 budget.  This is
-    the derived bound VERDICT r3 item 5 asked for."""
+    the derived bound."""
     y, W, E, G, Ls = _dataset(S=3)
     g = G[:, [0]]
     M = np.concatenate((W, g, E), axis=1)

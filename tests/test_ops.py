@@ -119,7 +119,7 @@ def test_gram_basis_high_condition(rng):
     """The Gram-route basis (engine._gram_basis) at kappa ~ 1e8: retained
     directions must represent the factor covariance to ~1e-9 relative, and
     an end-to-end null-context scan on the ill-conditioned stack must match
-    the dense oracle (ADVICE r4 #4: the sqrt(eps) rank-resolution limit is
+    the dense oracle (the sqrt(eps) rank-resolution limit is
     acceptable for the squared-spectrum use, but was untested)."""
     from cellregmap_tpu import engine
 
@@ -157,7 +157,7 @@ def test_gram_basis_high_condition(rng):
 
 def test_batched_small_chol_and_solve():
     """fori-loop batched tiny-matrix Cholesky/solve vs numpy (the native
-    batched path is catastrophically slow on TPU; ops/linalg.py)."""
+    batched path is slow on tiny matrices; ops/linalg.py)."""
     import numpy as np
     import jax.numpy as jnp
     from numpy.testing import assert_allclose
@@ -178,7 +178,7 @@ def test_batched_small_chol_and_solve():
 
 def test_blocked_kr_contract_matches_direct(monkeypatch):
     """The cell-axis-blocked Khatri-Rao path (used at large n to bound
-    XLA's f64 limb-expansion buffers) must equal the one-shot matmul."""
+    the contraction's temporaries) must equal the one-shot matmul."""
     import numpy as np
     import jax.numpy as jnp
     from numpy.testing import assert_allclose

@@ -41,7 +41,7 @@ def test_sharded_matches_single_device():
 @pytest.mark.skipif(len(jax.devices()) < 2, reason="needs multiple devices")
 def test_sharded_multigene_matches_single_device():
     """Sharded gene-batched interaction scan (variants sharded, genes
-    replicated) == the local multigene driver (VERDICT r3 item 6)."""
+    replicated) == the local multigene driver."""
     y, W, E, G, Ls = _dataset(seed=61, S=13)
     rng = np.random.default_rng(3)
     Y = y[:, None] + 0.3 * rng.normal(size=(y.shape[0], 3))
@@ -119,7 +119,7 @@ def test_sharded_assoc_fast_driver_matches_local():
 @pytest.mark.skipif(len(jax.devices()) < 2, reason="needs multiple devices")
 def test_sharded_assoc_refit_driver_matches_local():
     """ShardedScanner.scan_association (Newton refit) == local driver
-    (VERDICT r4 task 3)."""
+."""
     y, W, E, G, Ls = _dataset(seed=89, S=13)
     crm = crt.CellRegMap(y=y, E=E, W=W, Ls=Ls)
     pv_local, info_local = crm.scan_association(G)
@@ -132,7 +132,7 @@ def test_sharded_assoc_refit_driver_matches_local():
 @pytest.mark.skipif(len(jax.devices()) < 2, reason="needs multiple devices")
 def test_sharded_assoc_multigene_drivers_match_local():
     """Sharded multigene association drivers (refit + fast) == local
-    (VERDICT r4 task 3: completes the ShardedScanner surface)."""
+."""
     y, W, E, G, Ls = _dataset(seed=97, S=13)
     rng = np.random.default_rng(11)
     Y = y[:, None] + 0.3 * rng.normal(size=(y.shape[0], 3))
@@ -173,7 +173,7 @@ def test_sharded_screen_matches_local():
 @pytest.mark.skipif(len(jax.devices()) < 2, reason="needs multiple devices")
 def test_sharded_assoc_checkpoint_resume(tmp_path, monkeypatch):
     """Crash -> resume on the sharded association scan (checkpoint wiring
-    through ShardedScanner, VERDICT r4 task 2)."""
+    through ShardedScanner)."""
     from cellregmap_tpu.parallel.checkpoint import ScanCheckpoint
     from cellregmap_tpu.parallel import scan as scan_mod
 
@@ -302,9 +302,9 @@ def test_sharded_checkpoint_resume_from_partial(tmp_path, monkeypatch):
 
 
 def test_multigene_scan_checkpoint_resume(tmp_path, monkeypatch):
-    """Gene-tile checkpoint/resume on scan_interaction_multigene (VERDICT
-    r3 hygiene): crash after one tile, resume, match the clean result while
-    re-running only the remaining tiles."""
+    """Gene-tile checkpoint/resume on scan_interaction_multigene: crash
+    after one tile, resume, match the clean result while re-running only
+    the remaining tiles."""
     y, W, E, G, Ls = _dataset(seed=71, S=6)
     rng = np.random.default_rng(9)
     Y = y[:, None] + 0.3 * rng.normal(size=(y.shape[0], 4))

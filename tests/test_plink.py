@@ -240,7 +240,7 @@ def _expected_filter(cohort, maf_min=0.01):
 
 def test_streaming_association_matches_direct(cohort):
     """Streaming fast + slow association over .bed == direct in-memory
-    scans on the same decoded/filtered genotypes (VERDICT r4 task 7)."""
+    scans on the same decoded/filtered genotypes."""
     from cellregmap_tpu.plink_scan import scan_association_plink
 
     crm = _make_crm(cohort)

@@ -104,7 +104,7 @@ def test_davies_semi_exact_three_weights():
 
 @pytest.mark.skipif(get_qfc() is None, reason="native qfc unavailable")
 def test_davies_extreme_tail_relative():
-    """Genome-wide-significance battery (VERDICT r4 task 8): RELATIVE
+    """Genome-wide-significance battery: RELATIVE
     accuracy of the native Davies path in the p < 1e-10 regime, where the
     earlier absolute-tolerance pins are vacuous.
 

@@ -1,5 +1,5 @@
 """Parity against the actual reference stack's pinned constants and its own
-simulator (VERDICT.md round-1 items 1 and 10).
+simulator.
 
 Three layers of grounding, strongest first:
 
@@ -171,7 +171,7 @@ def test_predict_interaction_crosscheck_on_reference_data(ref_data):
     crm = CellRegMap(y=s.y, E=s.E, W=s.M, Ls=[np.asarray(L) for L in s.Ls])
     beta_g, beta_gxe = crm.predict_interaction(s.G, s.mafs)
     dense = _predict_dense_current_algorithm(s, [3, 10, 19])
-    # 1e-6 parity budget (VERDICT r3 item 5); measured agreement ~2e-10
+    # 1e-6 parity budget; measured agreement ~2e-10
     # on beta_G and exact 0 on beta_GxC (rho1 = 0 for these snps).  The
     # delta-sensitivity bound justifying 1e-6 is pinned in
     # tests/test_many_contexts.py::test_betas_delta_sensitivity_bound.

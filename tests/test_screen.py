@@ -1,10 +1,10 @@
 """Two-pass screen -> confirm scan: discovery-set equality + f32 accuracy.
 
-VERDICT r4 task 1: the screen mode is only admissible with (a) a proof that
+The screen mode is only admissible with (a) a proof that
 the *confirmed* discovery set and its p-values match the full-f64 path
 exactly, and (b) a measured screen-miss bound justifying the margin.  These
-tests provide both at CPU-tractable shapes; docs/performance.md carries the
-production-shape (n=2048, S=512) measurement from the same harness.
+tests provide both at CPU-tractable shapes; chip_smoke.py measures the
+screen error at the 10k-cell north-star shape on the GPU.
 """
 import numpy as np
 import pytest
@@ -68,8 +68,8 @@ def test_screen_confirms_exact_f64_pvalues(data, crm):
 def test_screen_f32_accuracy_bound(data, crm):
     """Measured screen-miss bound: max |log10(pv32/pv64)| across the scan
     must stay well inside the default 2-decade margin.  This is the
-    CPU-shape instance of the calibration evidence (VERDICT r4 weak #3);
-    the production-shape run lives in docs/performance.md."""
+    CPU-shape instance of the calibration evidence; chip_smoke.py checks
+    the north-star shape on the GPU."""
     y, W, E, Ls, G = data
     pv64, _ = crm.scan_interaction(G)
     _, info = crm.scan_interaction_screen(G, significance=1e-300)
